@@ -2,7 +2,7 @@
 """End-to-end example: map a steel structure from simulated ToF frames.
 
 Simulates a drone orbit-climbing a lattice tower, streams the frames through
-the TPU pipeline, evaluates against ground truth with the reference's match
+the device pipeline, evaluates against ground truth with the reference's match
 criteria, and writes the CSVs + plots.
 
     python examples/map_a_structure.py [out_dir]

@@ -1,7 +1,7 @@
 // Native runtime components for pointcloud_segmentation_tpu.
 //
 // The reference implements its runtime in C++ (ROS node, PCL filters, Hough
-// submodule).  The TPU rebuild keeps the *compute* on the XLA path, and
+// submodule).  This rebuild keeps the *compute* on the XLA path, and
 // implements the host runtime's hot pieces natively, exposed through a plain
 // C ABI consumed via ctypes (no pybind11 in this image):
 //
@@ -32,6 +32,7 @@
 #include <cstring>
 #include <deque>
 #include <mutex>
+#include <string>
 #include <thread>
 #include <vector>
 

@@ -1,6 +1,6 @@
-"""TPU-native point-cloud segmentation framework.
+"""Accelerator-native point-cloud segmentation framework.
 
-A from-scratch JAX/XLA/Pallas rebuild of the capabilities of
+A from-scratch JAX/XLA rebuild of the capabilities of
 DJacquemont/pointcloud_segmentation: streaming ToF point clouds -> persistent
 3D wireframe map of steel structures (window/voxel pre-processing, iterative
 3D Hough line extraction, PCA gating, drone->world transform, weighted

@@ -1,4 +1,4 @@
-"""Configuration for the TPU-native point-cloud segmentation pipeline.
+"""Configuration for the compiled point-cloud segmentation pipeline.
 
 Key-for-key compatible with the reference node's ``config_pc_seg/config.yaml``
 (reference: config_pc_seg/config.yaml:1-35, loaded at
@@ -18,9 +18,6 @@ from __future__ import annotations
 
 import dataclasses
 import math
-
-
-import yaml
 
 # Direction counts per granularity level of the tessellated-icosahedron
 # direction discretization (reference: hough_3d_lines.h:192).
@@ -73,29 +70,25 @@ class PipelineConfig:
     opt_nlines: int = 10
     radius_sizes: tuple = (0.05,)
 
-    # --- TPU-native additions ---
+    # --- compiled-pipeline additions ---
     shapes: StaticShapes = dataclasses.field(default_factory=StaticShapes)
     window_size: float = WINDOW_FILTERING_SIZE
     # Parity mode: "float64" runs the device pipeline in f64 (requires
-    # jax_enable_x64; CPU-oriented — TPUs emulate f64 slowly), keeping the
-    # oracle's deliberate f32 stages (vote binning, cell decode, scatter
-    # eigensolves — reference h:129 MatrixXf) pinned to f32.  The perf
-    # default is full-f32.
+    # jax_enable_x64; GPUs with native FP64 such as the H100 run it on the
+    # card), keeping the oracle's deliberate f32 stages (vote binning, cell
+    # decode, scatter eigensolves — reference h:129 MatrixXf) pinned to
+    # f32.  The perf default is full-f32.
     compute_dtype: str = "float32"
     # Voting accumulator strategy (ops/hough.py): "carry" keeps the exact
     # (B, num_x, num_x) histogram on device (the reference's Hough
     # add/subtract); "lazy" keeps only (best, key, bound) per direction —
     # O(B) state, the histogram never materializes — and re-examines the
     # few directions whose bound could beat the global max.  None = auto:
-    # lazy when the carry would exceed ~48 MB (granularity 6 / small-radius
-    # configs, where the carry is 0.5-5+ GB), carry otherwise.
+    # lazy when the carry would exceed 48 MB (granularity 6 / small-radius
+    # configs, where the carry is 0.5-5+ GB), carry otherwise.  The 48 MB
+    # threshold was tuned before the move to the GPU and awaits a sweep
+    # there.
     voting: str | None = None
-    # Pallas fused voting kernel (ops/voting_pallas.py): opt-in.  Measured on
-    # v5e the XLA batched-einsum histogram currently schedules better than
-    # the per-direction kernel (12.5 vs 28 ms/frame at granularity 4), so
-    # auto (None) resolves to False; the kernel remains available for
-    # experimentation and future fused add/subtract designs.
-    use_pallas: bool | None = None
     # Accuracy extension (opt-in, beyond the reference): compensate the
     # report's §6.3 "Ground Truth Offset" — ToF returns lie on the beam
     # SURFACE facing the sensor, so every fitted axis is biased toward the
@@ -171,7 +164,7 @@ class PipelineConfig:
     @classmethod
     def from_yaml(cls, path: str, **overrides) -> "PipelineConfig":
         with open(path) as f:
-            raw = yaml.safe_load(f) or {}
+            raw = read_flat_yaml(f.read())
         return cls.from_dict(raw, **overrides)
 
     @classmethod
@@ -205,7 +198,120 @@ class PipelineConfig:
 
     def to_yaml(self, path: str) -> None:
         with open(path, "w") as f:
-            yaml.safe_dump(self.to_dict(), f, sort_keys=False)
+            f.write(write_flat_yaml(self.to_dict()))
+
+
+# --- the reference's flat YAML schema (configs/config.yaml) -------------
+# Top-level `key: scalar` lines and `key:` followed by `- scalar` block-list
+# items; `#` comments and blank lines are ignored.  Scalars resolve like
+# YAML 1.1's core types as used by the reference: int, float, bool, null,
+# else string (quotes stripped).  Anything else (nesting, flow collections,
+# anchors) is rejected rather than guessed at.
+
+_YAML_TRUE = ("true", "True", "TRUE", "yes", "Yes", "YES", "on", "On", "ON")
+_YAML_FALSE = ("false", "False", "FALSE", "no", "No", "NO", "off", "Off",
+               "OFF")
+_YAML_NULL = ("", "~", "null", "Null", "NULL")
+
+
+def _parse_scalar(tok: str):
+    tok = tok.strip()
+    if len(tok) >= 2 and tok[0] == tok[-1] == "'":
+        return tok[1:-1].replace("''", "'")
+    if len(tok) >= 2 and tok[0] == tok[-1] == '"':
+        return tok[1:-1].replace('\\"', '"').replace("\\\\", "\\")
+    if tok in _YAML_NULL:
+        return None
+    if tok in _YAML_TRUE:
+        return True
+    if tok in _YAML_FALSE:
+        return False
+    if tok[:1] in "[{&*!|>":
+        raise ValueError(f"unsupported YAML value {tok!r}")
+    try:
+        return int(tok)
+    except ValueError:
+        pass
+    # YAML 1.1 floats need a '.' in the mantissa ("1e-5" stays a string)
+    mant = tok.lower().split("e")[0]
+    if "." in mant:
+        try:
+            return float(tok)
+        except ValueError:
+            pass
+    return tok
+
+
+def _strip_comment(line: str) -> str:
+    quote = None
+    for i, ch in enumerate(line):
+        if quote:
+            if ch == quote:
+                quote = None
+        elif ch in "'\"":
+            quote = ch
+        elif ch == "#" and (i == 0 or line[i - 1] in " \t"):
+            return line[:i]
+    return line
+
+
+def read_flat_yaml(text: str) -> dict:
+    """Parse the reference config's flat YAML subset into a dict."""
+    out: dict = {}
+    list_key = None
+    for n, raw in enumerate(text.splitlines(), 1):
+        line = _strip_comment(raw).rstrip()
+        if not line.strip() or line.strip() in ("---", "..."):
+            continue
+        body = line.lstrip()
+        if body.startswith("- ") or body == "-":
+            if list_key is None:
+                raise ValueError(f"line {n}: list item outside a list key")
+            out[list_key].append(_parse_scalar(body[1:]))
+            continue
+        if line[0] in " \t":
+            raise ValueError(f"line {n}: nested YAML is not supported")
+        key, sep, val = line.partition(":")
+        if not sep or not key.strip():
+            raise ValueError(f"line {n}: expected 'key: value'")
+        key = key.strip()
+        if val.strip():
+            out[key] = _parse_scalar(val)
+            list_key = None
+        else:
+            out[key] = []
+            list_key = key
+    # a bare `key:` with no items is YAML null
+    return {k: (None if v == [] else v) for k, v in out.items()}
+
+
+def _format_scalar(v) -> str:
+    if isinstance(v, bool):
+        return "true" if v else "false"
+    if isinstance(v, int):
+        return str(v)
+    if isinstance(v, float):
+        s = repr(v)
+        mant, e, exp = s.partition("e")
+        if e and "." not in mant:   # keep it a float for YAML 1.1 readers
+            s = f"{mant}.0e{exp}"
+        return s
+    s = str(v)
+    if _parse_scalar(s) != s or s != s.strip() or ": " in s or "#" in s:
+        return "'" + s.replace("'", "''") + "'"
+    return s
+
+
+def write_flat_yaml(d: dict) -> str:
+    """Inverse of read_flat_yaml (lists as `- item` blocks, key order kept)."""
+    lines = []
+    for k, v in d.items():
+        if isinstance(v, (list, tuple)):
+            lines.append(f"{k}:")
+            lines.extend(f"- {_format_scalar(x)}" for x in v)
+        else:
+            lines.append(f"{k}: {_format_scalar(v)}")
+    return "\n".join(lines) + "\n"
 
 
 def default_config(**overrides) -> PipelineConfig:

@@ -1,10 +1,10 @@
-"""Closed-form symmetric 3x3 eigendecomposition (TPU-friendly).
+"""Closed-form symmetric 3x3 eigendecomposition (accelerator-friendly).
 
 The reference leans on Eigen's SelfAdjointEigenSolver (hough_3d_lines.h:141)
 and PCL's PCA (h:103) for 3x3 problems.  Inside a jit'd ``lax.while_loop`` an
-iterative LAPACK-style factorization is the wrong tool on TPU; the 3x3
-symmetric case has an analytic solution (trigonometric / Smith's method) that
-maps to a handful of VPU ops and vmaps freely.
+iterative LAPACK-style factorization is the wrong tool on an accelerator; the
+3x3 symmetric case has an analytic solution (trigonometric / Smith's method)
+that maps to a handful of elementwise ops and vmaps freely.
 
 Eigenvalues are returned in DESCENDING order (the convention of PCL's
 ``pca.getEigenValues``, h:106-107).

@@ -1,12 +1,12 @@
 """Iterative 3D Hough line extraction, XLA-native.
 
-TPU-first redesign of the reference's iterative Hough transform
+Accelerator redesign of the reference's iterative Hough transform
 (hough_3d_lines.h:167-349 plus the missing submodule's accumulator contract,
 SURVEY.md §2.3).  Key departures from the CPU design:
 
-* **Scatter-free accumulator on the MXU.**  The reference's (B, num_x,
-  num_x) vote array with add/subtract bookkeeping (h:228, 241) maps to TPU
-  as exact one-hot matmul histograms: the accumulator is built once per
+* **Scatter-free accumulator as matmuls.**  The reference's (B, num_x,
+  num_x) vote array with add/subtract bookkeeping (h:228, 241) maps to
+  exact one-hot matmul histograms: the accumulator is built once per
   frame (bf16 one-hots, f32 accumulation — integer-exact), carried through
   the loop, and each extracted line's inliers are subtracted as a compacted
   delta histogram.  The global argmax runs two-stage (row max, then within
@@ -63,7 +63,7 @@ class SegmentBatch(NamedTuple):
 class HoughResult(NamedTuple):
     segments: SegmentBatch
     nlines: jnp.ndarray       # int32 — nblines_extracted (0 on frame abort)
-    status: jnp.ndarray       # int32 STATUS_* taxonomy (oracle/pipeline.py):
+    status: jnp.ndarray       # int32 STATUS_* classification (oracle/pipeline.py):
                               # 0 ok, 1 degenerate, 2 dx>=d, 3 b.x==0 abort
 
 
@@ -155,7 +155,7 @@ def _vote_bins(Xs, c1, c2, d, dx, num_x):
 
 def _onehot_histogram(xt, yt, num_x_static):
     """(B, NX, NX) exact counts from (B, N) int32 bin indices: bf16 one-hot
-    rows/columns contracted on the MXU with f32 accumulation (0/1 values
+    rows/columns contracted as a matmul with f32 accumulation (0/1 values
     and counts < 2^24 are exact).  An out-of-range xt (the `num_x_static`
     sentinel) yields an all-zero one-hot row — callers fold inactive/empty
     masks into xt before calling.  The add path (_vote_histogram), the
@@ -171,6 +171,9 @@ def _onehot_histogram(xt, yt, num_x_static):
                       preferred_element_type=jnp.float32)
 
 
+# The three sizes below were tuned on the accelerator this pipeline was
+# first built for (the tile matched its 128-wide matrix unit); they are
+# correct on any device and await a sweep on the GPU.
 _VOTE_TILE = 128  # directions per histogram tile (bounds the one-hot transient)
 _GAP_RANK_MAX_N = 4096  # above this, the gap check sorts instead of using
                         # the O(N²) rank matrix (see the gate in the loop)
@@ -179,7 +182,7 @@ _SUSPECT_CAP = 2048     # lazy voting: max directions re-examined per round
 
 
 def _vote_histogram(Xs, c1, c2, d, dx, num_x, active, num_x_static):
-    """Exact (B, NX, NX) vote counts of the active points, on the MXU.
+    """Exact (B, NX, NX) vote counts of the active points, as matmuls.
 
     votes[b, x, y] = #{n : active[n], xi[b,n]==x, yi[b,n]==y}, computed as a
     batched one-hot matmul: X1[b,x,n] @ Y1[b,n,y] with bf16 one-hots and f32
@@ -187,8 +190,8 @@ def _vote_histogram(Xs, c1, c2, d, dx, num_x, active, num_x_static):
     direction axis with lax.map; the f32-by-spec bins are recomputed INSIDE
     each tile from the (N, 3) shifted cloud — a (tile, N) flop triviality
     that keeps the (B, N) bin arrays (336 MB at granularity 6) from ever
-    existing in HBM.  This is the scatter-free TPU formulation of the
-    reference accumulator's ``add`` (h:228).
+    existing in device memory.  This is the scatter-free formulation of
+    the reference accumulator's ``add`` (h:228).
     """
     B = c1.shape[0]
     N = Xs.shape[0]
@@ -236,7 +239,7 @@ def _vote_histogram_delta(Xs, c1, c2, d, dx, num_x, removed, n_rem,
     re-bins just those rows with the same f32 expression as `_vote_bins` —
     bit-identical bins at any num_x.  (A bf16 value-compaction matmul here
     silently corrupts bins >= 256, which valid configs reach — e.g.
-    radius_sizes=(0.015,); and it costs B*N*R MXU flops vs B*3*R for
+    radius_sizes=(0.015,); and it costs B*N*R matmul flops vs B*3*R for
     re-binning the gathered rows.)
     """
     Xr, col_live = _compact_removed(Xs, removed, n_rem, sub_chunk)
@@ -396,7 +399,6 @@ def extract_lines(points: jnp.ndarray, valid: jnp.ndarray,
     num_x = jnp.maximum(jnp.floor(d / dx + 0.5).astype(jnp.int32), 1)
 
     cells = num_x_static * num_x_static
-    use_pallas = bool(cfg.use_pallas)  # None (auto) -> False; see config.py
     lazy = cfg.voting_mode == "lazy"
     sub_chunk = min(_SUB_CHUNK, N)
     # capacity of the per-round suspect re-examination (lazy mode): a
@@ -424,15 +426,8 @@ def extract_lines(points: jnp.ndarray, valid: jnp.ndarray,
         if lazy:
             return _vote_state_tiles(Xs, c1, c2, d, dx, num_x, active0,
                                      num_x_static)
-        if use_pallas:
-            from .voting_pallas import vote_histogram_pallas
-
-            xb, yb = _vote_bins(Xs, c1, c2, d, dx, num_x)
-            xi_m = jnp.where(active0[None, :], xb, num_x_static)
-            v0 = vote_histogram_pallas(xi_m, yb, num_x_static)
-        else:
-            v0 = _vote_histogram(Xs, c1, c2, d, dx, num_x, active0,
-                                 num_x_static)
+        v0 = _vote_histogram(Xs, c1, c2, d, dx, num_x, active0,
+                             num_x_static)
         return (v0, v0.max(axis=(1, 2)))
 
     def _vstate_winner(vs):
@@ -490,10 +485,11 @@ def extract_lines(points: jnp.ndarray, valid: jnp.ndarray,
                                 ub.at[tgt].set(us, mode="drop"))
                     return go
 
-                # Measured suspect counts per round are 0-300 at granularity
-                # 6 (stale-ub decay), so a small first tier handles nearly
-                # every round at ~1/8 the cost of the full s_cap exam; the
-                # s_cap tier and the exact full rebuild remain as fallbacks.
+                # Suspect counts per round stay in the low hundreds at
+                # granularity 6 (stale-ub decay), so a small first tier
+                # handles nearly every round at a fraction of the full
+                # s_cap exam; the s_cap tier and the exact full rebuild
+                # remain as fallbacks.
                 args2 = (best, key, ub)
                 if s_tier < s_cap:
                     sel = jnp.where(n_sus <= s_tier, 0,
@@ -605,9 +601,9 @@ def extract_lines(points: jnp.ndarray, valid: jnp.ndarray,
         # Gap check over t-sorted order (h:285-292).  Two formulations with
         # identical results (ties have equal t, hence equal ||a + t b||, so
         # their relative order never changes the adjacent-gap maximum):
-        #   * rank-matrix: stable ranks via one (N, N) pairwise pass on the
-        #     VPU — beats a sort's fixed ~0.5 ms up to a few thousand points
-        #     but is O(N²) memory;
+        #   * rank-matrix: stable ranks via one (N, N) pairwise pass — beat
+        #     a sort up to a few thousand points where it was first tuned
+        #     (crossover not yet re-measured on the GPU) but is O(N²) memory;
         #   * sort: O(N log N), the only viable shape for large sensors
         #     (128×128 ToF ⇒ N = 16k would need three 256M-cell matrices).
         tv = jnp.where(m2, t, jnp.inf)
@@ -720,7 +716,7 @@ def extract_lines(points: jnp.ndarray, valid: jnp.ndarray,
 
     # frame abort (b.x == 0): keep earlier segments, report 0 lines (h:276-279)
     nlines = jnp.where(final.fail, 0, final.nlines)
-    # explicit failure taxonomy, shared with oracle.pipeline.STATUS_*
+    # explicit failure classification, shared with oracle.pipeline.STATUS_*
     status = jnp.where(degenerate, 1,
                        jnp.where(dx_too_large, 2,
                                  jnp.where(final.fail, 3, 0))).astype(jnp.int32)

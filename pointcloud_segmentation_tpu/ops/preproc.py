@@ -86,8 +86,9 @@ def preprocess(points: jnp.ndarray, cfg: PipelineConfig
     valid_s = valid[order]
 
     # Groups are contiguous runs in sorted order with all valid rows first.
-    # Per-voxel sums go through a one-hot matmul on the MXU (TPU scatters
-    # serialize; this stays one dense op) with f32-accurate accumulation;
+    # Per-voxel sums go through one dense one-hot matmul at HIGHEST
+    # precision (chosen where scatters serialize; a segment_sum is the
+    # native GPU form and awaits a measurement on the card);
     # counts come from an exact integer prefix sum.
     isnew = jnp.concatenate([jnp.array([True]), keys_s[1:] != keys_s[:-1]])
     first = isnew & valid_s

@@ -7,7 +7,7 @@ spec), written in vectorized float64 numpy.  It plays three roles:
 
   1. the CPU performance baseline (BASELINE.md: the reference C++ cannot run
      here — no ROS/PCL and the Hough submodule is missing from the snapshot);
-  2. the golden source for the JAX/TPU pipeline's parity tests;
+  2. the golden source for the JAX pipeline's parity tests;
   3. the executable specification of every algorithmic decision.
 
 Known deliberate deviations from the reference C++ (each flagged D-<name>
@@ -213,8 +213,8 @@ class HoughSpace:
 
         Binning arithmetic is float32 BY SPEC, with the fixed association
         order (p0*c + p1*c) + p2*c, so the oracle and the XLA pipeline land
-        points in identical cells (TPU compute is f32; a matmul here would
-        leave the summation order/precision to the backend).
+        points in identical cells (device compute is f32; a matmul here
+        would leave the summation order/precision to the backend).
         """
         p32 = pts.astype(np.float32)
         x0, x1, x2 = p32[:, 0:1], p32[:, 1:2], p32[:, 2:3]
@@ -283,7 +283,7 @@ def hough3dlines(points: np.ndarray, cfg: PipelineConfig,
 
     Returns (segments, nblines_extracted, status).  The reference collapses
     every abort path into a single nonzero return; the rebuild keeps an
-    explicit taxonomy (STATUS_*) so callers can tell sensor dropouts from
+    explicit classification (STATUS_*) so callers can tell sensor dropouts from
     parameter errors — the failure-detection upgrade called out in
     SURVEY.md §5.  STATUS_BX_ZERO keeps already-extracted segments and
     reports 0 lines, matching the caller's untouched counter at node.cpp:293.

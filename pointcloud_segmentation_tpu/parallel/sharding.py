@@ -2,7 +2,7 @@
 tensor-parallelism.
 
 The reference is a single-host, single-thread robotics node (SURVEY.md §2.6)
-— its only concurrency is a 2-thread mailbox.  The TPU-native framework adds
+— its only concurrency is a 2-thread mailbox.  This framework adds
 two honest axes of scale for high-throughput map building and the
 granularity-6 stress configuration (BASELINE.json configs 4-5):
 

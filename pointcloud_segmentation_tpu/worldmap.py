@@ -290,11 +290,9 @@ def update_intersections(state_fields: dict, valid, inter_old, touched,
     Pair (i, j), j < i: seg_i plays `drone_seg`, seg_j plays `world_seg`.
 
     Everything is computed on per-component (S, S) planes rather than
-    (S, S, 3) / (S, S, 3, 3) stacks: on TPU the trailing 3 (or (3, 3))
-    minor dims pad to full (8, 128) tiles, so the stacked formulation moved
-    ~40-1000x the useful bytes (the (S, S, 3, 3) Cramer LHS alone was
-    ~16 MB of padded HBM traffic) — measured 0.79 ms/frame, vs ~0.2 ms in
-    this layout.  The arithmetic (cross products, dots, Cramer solve) is
+    (S, S, 3) / (S, S, 3, 3) stacks: a trailing minor dim of 3 (or (3, 3))
+    pads badly on tiled device layouts, so the stacked formulation moved
+    many times the useful bytes.  The arithmetic (cross products, dots, Cramer solve) is
     written in exactly the stacked form's operation order, so results are
     bit-identical.
     """

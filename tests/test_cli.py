@@ -8,6 +8,9 @@ import pytest
 
 from pointcloud_segmentation_tpu.cli import main
 
+CONFIG_YAML = os.path.join(os.path.dirname(__file__), "..", "configs",
+                           "config.yaml")
+
 
 def test_cli_run_and_eval_and_timing(tmp_path, capsys):
     out = str(tmp_path / "out")
@@ -63,10 +66,13 @@ def test_cli_stream(tmp_path, capsys):
     assert os.path.exists(os.path.join(out, "processing_time.csv"))
 
 
-def test_cli_run_from_reference_wbt(tmp_path, capsys):
+def test_cli_run_from_reference_wbt(tmp_path, capsys, reference_file):
     """--wbt: fly the simulated trajectory against the REFERENCE's actual
-    benchmark world file and evaluate against its parsed ground truth."""
-    wbt = "/root/reference/webots_project/worlds/flying_arena_ros_obs_tests.wbt"
+    benchmark world file and evaluate against its parsed ground truth.
+    The reference checkout is not carried in this repo: point
+    PCS_REFERENCE_DIR at one to run this test."""
+    wbt = reference_file("webots_project", "worlds",
+                         "flying_arena_ros_obs_tests.wbt")
     out = str(tmp_path / "out_wbt")
     rc = main(["run", "--granularity", "2", "--backend", "oracle",
                "--out", out, "--hz", "2.0", "--velocity", "0.3",
@@ -100,7 +106,7 @@ def test_cli_viz_stream_to_html(tmp_path, capsys):
 
 def test_cli_with_reference_yaml(tmp_path, capsys):
     out = str(tmp_path / "out3")
-    rc = main(["run", "--config", "/root/reference/config_pc_seg/config.yaml",
+    rc = main(["run", "--config", CONFIG_YAML,
                "--granularity", "2", "--out", out, "--hz", "1.0",
                "--velocity", "0.5", "--max-frames", "3"])
     assert rc == 0

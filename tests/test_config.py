@@ -1,4 +1,5 @@
 import math
+import os
 
 import pytest
 
@@ -41,8 +42,10 @@ def test_yaml_roundtrip(tmp_path):
 
 
 def test_reference_yaml_loads():
-    # the shipped reference config parses with identical semantics
-    cfg = PipelineConfig.from_yaml("/root/reference/config_pc_seg/config.yaml")
+    # the shipped reference config (carried verbatim in configs/) parses
+    # with identical semantics
+    cfg = PipelineConfig.from_yaml(os.path.join(
+        os.path.dirname(__file__), "..", "configs", "config.yaml"))
     assert cfg.granularity == 6
     assert cfg.radius_sizes == (0.05,)
     assert cfg.opt_minvotes == 12

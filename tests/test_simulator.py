@@ -82,13 +82,13 @@ def test_trajectory_poses_and_sim():
     assert frames[0].points.dtype == np.float32
 
 
-def test_parse_wbt_matches_transcribed_scene():
+def test_parse_wbt_matches_transcribed_scene(reference_file):
     # the parser applied to the reference's own benchmark world reproduces
     # the transcribed fixture exactly
     from pointcloud_segmentation_tpu.io.scene import parse_wbt_scene
 
-    parsed = parse_wbt_scene(
-        "/root/reference/webots_project/worlds/flying_arena_ros_obs_tests.wbt")
+    parsed = parse_wbt_scene(reference_file(
+        "webots_project", "worlds", "flying_arena_ros_obs_tests.wbt"))
     assert len(parsed) == len(OBS_TESTS_SCENE) == 7
     for p, t in zip(parsed, OBS_TESTS_SCENE):
         np.testing.assert_allclose(p.center, t.center, atol=1e-12)
@@ -97,13 +97,13 @@ def test_parse_wbt_matches_transcribed_scene():
         assert p.height == t.height == 2.0
 
 
-def test_parse_wbt_dev_world_has_no_labeled_truth():
+def test_parse_wbt_dev_world_has_no_labeled_truth(reference_file):
     # the development world's 9 beams carry no DEF SEGn labels (only the
     # benchmark world is machine-readable — same as tests_structure.py)
     from pointcloud_segmentation_tpu.io.scene import parse_wbt_scene
 
-    parsed = parse_wbt_scene(
-        "/root/reference/webots_project/worlds/flying_arena_ros_obs.wbt")
+    parsed = parse_wbt_scene(reference_file(
+        "webots_project", "worlds", "flying_arena_ros_obs.wbt"))
     assert parsed == ()
 
 

@@ -141,7 +141,7 @@ def test_serve_session_watched_live(tmp_path):
 
 def test_deferred_stream_viz_flush_cadence():
     """A viz stream must NOT kick a deferred stream back to the synchronous
-    per-frame path (that cost 3-4x throughput on the relay): the flusher
+    per-frame path: the flusher
     emits flush-cadence records built from one packed state snapshot, and
     their geometry matches the engine's own world map."""
     import time
